@@ -1,4 +1,4 @@
-"""tbz — a TPU-native DEFLATE codec (the "3bz_tpu" framework).
+"""tbz — a DEFLATE codec that inflates into accelerator memory.
 
 Built from scratch in JAX/XLA/Pallas with the behavioral contract of the
 3b/3bz reference decompressor (see SURVEY.md): byte-exact inflate of raw

@@ -19,7 +19,7 @@ import time
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m tbz",
-        description="TPU-native DEFLATE codec CLI (gzip framing)")
+        description="tbz DEFLATE codec CLI (gzip framing)")
     ap.add_argument("file", nargs="?", help="input file (default stdin)")
     ap.add_argument("-d", "--decompress", action="store_true")
     ap.add_argument("-c", "--stdout", action="store_true",

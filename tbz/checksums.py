@@ -3,7 +3,7 @@ device (JAX) kernels.
 
 The reference implements unrolled scalar loops with deferred modulo
 (checksums.lisp:18-174) and a table-driven CRC (checksums.lisp:177-210).
-The TPU design instead exploits that both checksums are *combinable*:
+The device kernels instead exploit that both checksums are *combinable*:
 
 - Adler-32 over a concatenation follows from per-chunk (sum, weighted
   sum) pairs — computed as wide vector reductions, tree-combined with
@@ -161,7 +161,7 @@ _BIT_WEIGHTS = None
 
 def _gf2_apply_device(mat_bits: jnp.ndarray, vec: jnp.ndarray) -> jnp.ndarray:
     """Apply a GF(2) 32x32 bit-matrix to uint32 vec(s) as an integer
-    matmul + parity — one MXU-shaped op instead of 32 selects."""
+    matmul + parity — one matrix product instead of 32 selects."""
     shape = vec.shape
     v = vec.reshape(-1, 1)
     bits = ((v >> jnp.arange(32, dtype=jnp.uint32)) & 1).astype(jnp.int32)
@@ -258,8 +258,9 @@ def _lane_matrix_np(lane_bytes: int) -> np.ndarray:
     its zero-init linear CRC: row (8j+b) = x^(8(B-1-j)) * L(byte 1<<b).
 
     CRC is GF(2)-linear, so a whole lane's CRC is ONE bit-matrix matmul —
-    the MXU formulation of the reference's byte-serial table loop
-    (checksums.lisp:196-210)."""
+    a matrix-product formulation of the reference's byte-serial table
+    loop (checksums.lisp:196-210). Operands are 0/1 and sums stay below
+    2^11, so any integer or float lowering of the product is exact."""
     B = lane_bytes
     t = crc_table()
     rows = np.zeros((8 * B, 32), dtype=np.int8)
@@ -312,7 +313,8 @@ def crc32_device(data, n, prev=0, lane_bytes: int = CRC_LANE_BYTES):
     `prev`. len(data) must be a multiple of lane_bytes. Returns uint32.
 
     Math: reg(init=~prev, data) = L(data) ^ (~prev)·x^{8n}; crc = ~reg.
-    L computed with the MXU bit-matmul scheme (front-padding is free).
+    L computed with the bit-matrix product scheme (front-padding is
+    free).
     """
     return _crc32_device(data, np.uint32(n), np.uint32(prev), lane_bytes)
 
@@ -377,9 +379,17 @@ def _crc_unshift_dynamic_device(crc: jnp.ndarray,
     return out
 
 
+def _pad_to(data, multiple: int):
+    """Zero-pad uint8 `data` to a multiple of `multiple` bytes (the tail
+    kernels mask everything past n, so padding never changes a sum)."""
+    pad = (-data.shape[0]) % multiple
+    return jnp.pad(data, (0, pad)) if pad else data
+
+
 def adler32_device_tail(data, n, prev=1, chunk: int = ADLER_CHUNK):
     """Adler-32 of the FIRST `n` bytes of uint8 `data` (trailing masked)."""
-    return _adler32_device_tail(data, np.uint32(n), np.uint32(prev), chunk)
+    return _adler32_device_tail(_pad_to(data, chunk), np.uint32(n),
+                                np.uint32(prev), chunk)
 
 
 @functools.partial(jax.jit, static_argnames=("chunk",))
@@ -419,7 +429,8 @@ def _adler32_device_tail(data, n, prev, chunk):
 
 def crc32_device_tail(data, n, prev=0, lane_bytes: int = CRC_LANE_BYTES):
     """CRC-32 of the FIRST `n` bytes of uint8 `data` (trailing masked)."""
-    return _crc32_device_tail(data, np.uint32(n), np.uint32(prev), lane_bytes)
+    return _crc32_device_tail(_pad_to(data, lane_bytes), np.uint32(n),
+                              np.uint32(prev), lane_bytes)
 
 
 @functools.partial(jax.jit, static_argnames=("lane_bytes",))

@@ -1,4 +1,4 @@
-"""RFC 1951 constant tables for the TPU-native DEFLATE codec.
+"""RFC 1951 constant tables for the tbz DEFLATE codec.
 
 Semantics parity with the reference's table layer (constants.lisp:20-73 in
 /root/reference), but laid out as NumPy arrays a device kernel can consume

@@ -1,7 +1,7 @@
 """Error types and device-safe error codes.
 
 The reference raises Lisp conditions on malformed input (e.g.
-huffman-tree.lisp:117,122, zlib.lisp:22-36, gzip.lisp:121-134). On TPU,
+huffman-tree.lisp:117,122, zlib.lisp:22-36, gzip.lisp:121-134). Device
 kernels cannot raise, so the device path reports numeric error codes that
 the host orchestration maps onto these exception types; the host-side
 paths raise directly.

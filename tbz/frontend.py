@@ -7,7 +7,7 @@ contract, selected by availability/size:
   - 'native'  : C++ tokenizer (tbz/native), the fast host path
   - 'python'  : tbz.reference, the bit-exact oracle (always available)
   - 'device'  : all-device tokenizer (ops/tokenize_device), used by the
-                fully-on-TPU pipeline
+                fully-on-device pipeline
 
 All produce identical tapes; tests cross-check them.
 """

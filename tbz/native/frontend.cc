@@ -2,7 +2,7 @@
 //
 // The sequential-irreducible parts of the codec (bit-stream symbol walk,
 // hash-chain match search) live here as the fast host path, feeding the
-// TPU backend (resolver + checksums) with fixed-width token tapes. This
+// device backend (resolver + checksums) with fixed-width token tapes. This
 // plays the role the reference's SBCL-vop-tuned hot loops play
 // (deflate.lisp:465-501, %copy-history) — reimplemented from the RFC,
 // with the same two-level-table decode contract as ../huffman.py.

@@ -1,13 +1,15 @@
 """ctypes loader for the native runtime (frontend.cc).
 
-Compiled on demand with g++ into tbz/native/build/ (cache keyed on
-source mtime). Exposes the same tokenize/match/resolve contracts as the
-Python implementations; tests cross-check the two.
+Compiled on demand with g++ into tbz/native/build/ (reused only while a
+stamp of source, command and compiler matches). Exposes the same
+tokenize/match/resolve contracts as the Python implementations; tests
+cross-check the two.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -83,18 +85,39 @@ class _TokResult(ctypes.Structure):
     ]
 
 
+def _build_stamp(cmd: list[str]) -> str:
+    """Hash of everything the library is built from: the source, the
+    compile command and the compiler's version."""
+    h = hashlib.sha256()
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    h.update("\0".join(cmd).encode())
+    h.update(subprocess.run([cmd[0], "--version"], check=True,
+                            capture_output=True, timeout=60).stdout)
+    return h.hexdigest()
+
+
 def _build() -> str | None:
+    """Build the library unless a stamp beside it matches this source,
+    command and compiler, so a library copied in from another machine
+    or built from other source is never loaded."""
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    if (os.path.exists(_SO)
-            and os.path.getmtime(_SO) >= os.path.getmtime(_SRC)):
-        return _SO
     # Plain -O3: -march=native/-funroll-loops measured SLOWER on the
     # virtualized Xeon (worse branch behavior in the decode loop).
     cmd = ["g++", "-O3", "-shared", "-pthread",
            "-fPIC", "-std=c++17", "-o", _SO + ".tmp", _SRC]
+    stamp_path = _SO + ".stamp"
     try:
+        stamp = _build_stamp(cmd)
+        if os.path.exists(_SO) and os.path.exists(stamp_path):
+            with open(stamp_path) as f:
+                if f.read() == stamp:
+                    return _SO
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
         os.replace(_SO + ".tmp", _SO)
+        with open(stamp_path + ".tmp", "w") as f:
+            f.write(stamp)
+        os.replace(stamp_path + ".tmp", stamp_path)
         return _SO
     except (subprocess.CalledProcessError, subprocess.TimeoutExpired,
             FileNotFoundError) as e:

@@ -1,63 +1,15 @@
-"""Row-gather-emulated 1D element gather for the TPU backend.
+"""Clipped gather shared by the device kernels.
 
-XLA:TPU lowers a 1D element gather ``x[idx]`` to ~110M elem/s (measured
-round 5, scripts/probe_gather_shapes.py) — it is the cost that bounds
-every pointer-doubling pass and table lookup in the device decode
-kernels. A 2D *row* gather over width-16 rows runs at ~700M rows/s on
-the same data, so
-
-    y[i] = x[idx[i]]  ==  rows = x.reshape(-1, 16)[idx >> 4]
-                          y    = sum(rows * onehot(idx & 15), axis=1)
-
-is 3.5x faster end to end (2.7 vs 9.5 ms per 2^20-element doubling
-pass incl. convergence check; one-hot select beats a where-cascade —
-strided halving slices lower badly). Width 16 ~ties 8 and 32; width 4
-is anomalously SLOW (11.6ms) — do not "optimize" the width down.
-
-On the CPU backend native gathers are fast and the 16x one-hot
-multiply work is pure loss, so callers pass ``emu=False`` there (the
-flag must be static: inside jit there is no device to inspect — use
-:func:`want_emulation` on a concrete input array at call time).
+``take(x, idx) == x[clip(idx, 0, len(x) - 1)]`` along axis 0: element
+gathers on 1D `x`, row gathers on 2D `x`. Clipping pins what an index
+past either end reads (XLA leaves it implementation-defined); callers
+mask such lanes themselves.
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
 
-_W = 16
-_LG = 4
 
-
-def want_emulation(arr) -> bool:
-    """True when `arr` (a concrete jax array) lives on a TPU device.
-    Call OUTSIDE jit and thread the answer through as a static arg."""
-    try:
-        return next(iter(arr.devices())).platform == "tpu"
-    except Exception:
-        return False
-
-
-def take1d(x: jnp.ndarray, idx: jnp.ndarray, emu: bool) -> jnp.ndarray:
-    """``x[clip(idx)]`` for 1D x / int32 idx of any shape; `emu` selects
-    the TPU row-gather emulation. Bit-exact with the native gather."""
-    n = x.shape[0]
-    idx = jnp.clip(idx, 0, n - 1)
-    if not emu:
-        return x[idx]
-    pad = (-n) % _W
-    if pad:
-        x = jnp.concatenate([x, jnp.zeros(pad, x.dtype)])
-    rows = x.reshape(-1, _W)[idx >> _LG]
-    oh = (jnp.arange(_W, dtype=jnp.int32) == (idx & (_W - 1))[..., None])
-    if x.dtype == jnp.uint8:
-        # multiply in int32 (uint8 one-hot mult-sum would wrap)
-        return jnp.sum(rows.astype(jnp.int32) * oh,
-                       axis=-1).astype(jnp.uint8)
-    return jnp.sum(rows * oh, axis=-1)
-
-
-def take_rows(x2: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """Row gather ``x2[clip(idx)]`` — already the fast primitive on both
-    backends; pad x2's row width to >= 8 at the call site when hot
-    (width-3 rows measured slow, width-8 ~700M rows/s)."""
-    return x2[jnp.clip(idx, 0, x2.shape[0] - 1)]
+def take(x: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
+    return x[jnp.clip(idx, 0, x.shape[0] - 1)]

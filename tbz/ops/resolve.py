@@ -1,8 +1,8 @@
 """Device LZ77 resolver: token tape -> output bytes.
 
 The reference materializes bytes inside the sequential decode loop with an
-offset-specialized overlapped copy (deflate.lisp:244-359). On TPU that
-dependency chain is re-expressed data-parallel:
+offset-specialized overlapped copy (deflate.lisp:244-359). On the
+device that dependency chain is re-expressed data-parallel:
 
   1. exclusive prefix-sum of token lengths -> each token's output span;
   2. scatter + cumsum -> covering token id for every output byte;
@@ -37,17 +37,15 @@ W = C.MAX_WINDOW  # 32768
 def _resolve_core(out_len: jnp.ndarray, dist: jnp.ndarray,
                   root_val: jnp.ndarray, n_tokens: jnp.ndarray,
                   input_bytes: jnp.ndarray, window: jnp.ndarray,
-                  out_capacity: int, has_stored: bool = True,
-                  emu: bool = False) -> jnp.ndarray:
+                  out_capacity: int, has_stored: bool = True
+                  ) -> jnp.ndarray:
     """Traceable resolver body shared by `_resolve_impl` and the fused
     splice+resolve kernel (ops/fused.py). Returns uint8[W + out_capacity];
     real output is [W : W + total_out]. Leading W bytes are the (possibly
     zero) history window. Token arrays may be padded past n_tokens.
     has_stored=False (static) elides the stored-run input gather — a
     full-output-size gather — when the caller knows no token carries
-    STORED_FLAG (e.g. the fused path's device tokens never do).
-    emu=True routes every full-size gather through the row-gather
-    emulation (ops/gather.py) — 3.5x per doubling pass on TPU."""
+    STORED_FLAG (e.g. the fused path's device tokens never do)."""
     T = out_len.shape[0]
     tok_idx = jnp.arange(T, dtype=jnp.int32)
     valid = tok_idx < n_tokens
@@ -62,12 +60,11 @@ def _resolve_core(out_len: jnp.ndarray, dist: jnp.ndarray,
     tid = jnp.clip(tid, 0, T - 1)
 
     q = jnp.arange(out_capacity, dtype=jnp.int32)
-    # ONE row gather for the three per-token fields, padded to width 8
-    # (width-3 rows lower poorly; width-8 rows run ~700M rows/s —
-    # ops/gather.py module docstring has the measurements)
+    # ONE row gather for the three per-token fields, rows padded to
+    # width 8
     z = jnp.zeros_like(dist)
     tok_rows = jnp.stack([dist, root_val, starts, z, z, z, z, z], axis=1)
-    g = G.take_rows(tok_rows, tid)
+    g = G.take(tok_rows, tid)
     d = g[:, 0]
     rv = g[:, 1]
     tstart = g[:, 2]
@@ -77,7 +74,7 @@ def _resolve_core(out_len: jnp.ndarray, dist: jnp.ndarray,
     if has_stored:
         is_stored = (rv & STORED_FLAG) != 0
         stored_off = (rv & (STORED_FLAG - 1)) + (q - tstart)
-        stored_byte = G.take1d(input_bytes, stored_off, emu)
+        stored_byte = G.take(input_bytes, stored_off)
         root_byte = jnp.where(is_stored, stored_byte,
                               rv.astype(jnp.uint8))
     else:
@@ -103,24 +100,24 @@ def _resolve_core(out_len: jnp.ndarray, dist: jnp.ndarray,
 
     def body(state):
         p, _ = state
-        p2 = G.take1d(p, p, emu)
+        p2 = G.take(p, p)
         return p2, jnp.any(p2 != p)
 
     parent, _ = jax.lax.while_loop(cond, body, (parent, jnp.bool_(True)))
 
     values = jnp.concatenate([window, root_byte])
-    return G.take1d(values, parent, emu)
+    return G.take(values, parent)
 
 
 @functools.partial(jax.jit,
-                   static_argnames=("out_capacity", "has_stored", "emu"))
+                   static_argnames=("out_capacity", "has_stored"))
 def _resolve_impl(out_len: jnp.ndarray, dist: jnp.ndarray,
                   root_val: jnp.ndarray, n_tokens: jnp.ndarray,
                   total_out: jnp.ndarray, input_bytes: jnp.ndarray,
                   window: jnp.ndarray, out_capacity: int,
-                  has_stored: bool = True, emu: bool = False) -> jnp.ndarray:
+                  has_stored: bool = True) -> jnp.ndarray:
     return _resolve_core(out_len, dist, root_val, n_tokens, input_bytes,
-                         window, out_capacity, has_stored, emu)
+                         window, out_capacity, has_stored)
 
 
 def _pad_pow2(n: int, floor: int = 1024) -> int:
@@ -157,11 +154,10 @@ def resolve_device(tape: TokenTape, input_bytes: bytes | np.ndarray,
     if len(win):
         wpad[W - len(win):] = win
     has_stored = bool(np.any(rv & STORED_FLAG))
-    j_ol = jnp.asarray(ol)
-    out = _resolve_impl(j_ol, jnp.asarray(di), jnp.asarray(rv),
+    out = _resolve_impl(jnp.asarray(ol), jnp.asarray(di), jnp.asarray(rv),
                         np.int32(n), np.int32(tape.total_out),
                         jnp.asarray(inp), jnp.asarray(wpad), cap,
-                        has_stored, G.want_emulation(j_ol))
+                        has_stored)
     return out, tape.total_out
 
 

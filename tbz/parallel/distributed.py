@@ -1,16 +1,16 @@
-"""Multi-host bring-up (SURVEY §2.5 obligation; DCN axis of the mesh).
+"""Multi-process bring-up (SURVEY §2.5 obligation).
 
-The reference has no inter-process anything; this is the TPU-native
-distribution layer: jax.distributed process groups + a global mesh whose
-'dp' axis spans hosts (members assigned per host, outputs gathered in
-stream order), with checksum combines riding the same collectives as the
-single-host path (parallel/shard.py works unchanged on a global mesh —
-shard_map + all_gather lower to ICI within a slice and DCN across).
+The reference has no inter-process anything; here jax.distributed
+process groups + a global mesh whose 'dp' axis spans processes (members
+assigned per process, outputs gathered in stream order), with checksum
+combines riding the same collectives as the single-process path
+(parallel/shard.py works unchanged on a global mesh; XLA hands shard_map's
+all_gather to the platform's collectives, NCCL on GPUs).
 
-Real multi-host execution needs a pod slice; this harness has one chip,
-so the multi-process path is exercised structurally (mesh construction,
-spec plumbing) by tests/test_parallel.py on virtual devices, and
-entry-point wiring lives here for a real deployment.
+The multi-process path runs as local processes on virtual CPU devices
+(tests/test_multihost.py); one process drives all GPUs of one host.
+jax.distributed needs its coordinator address, process count and id
+given explicitly.
 """
 
 from __future__ import annotations
@@ -32,9 +32,9 @@ def initialize(coordinator: str | None = None,
 
 
 def global_mesh(dp: int | None = None, sp: int = 1) -> Mesh:
-    """Mesh over ALL processes' devices: dp spans hosts (DCN) then chips
-    (ICI); sp stays within a host's chips so sequence-parallel gathers
-    ride ICI."""
+    """Mesh over ALL processes' devices: dp spans processes, then each
+    process's devices; sp stays within a process's devices so
+    sequence-parallel gathers stay on the host's own interconnect."""
     devs = np.array(jax.devices())
     n = devs.size
     if dp is None:
@@ -46,7 +46,7 @@ def global_mesh(dp: int | None = None, sp: int = 1) -> Mesh:
 def assign_members(sizes: list[int], n_shards: int) -> list[list[int]]:
     """Greedy balanced assignment of streams to shards by compressed
     size (longest-processing-time heuristic) — keeps per-host decode
-    time even, which is what the >=85% scaling-efficiency target needs."""
+    time even."""
     order = sorted(range(len(sizes)), key=lambda i: -sizes[i])
     loads = [0] * n_shards
     out: list[list[int]] = [[] for _ in range(n_shards)]

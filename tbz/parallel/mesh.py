@@ -1,9 +1,10 @@
 """Device mesh helpers.
 
-The reference has no distribution layer (SURVEY §2.5); this is the
-TPU-native equivalent mandated by the north star: a jax.sharding.Mesh
-over chips (ICI) and hosts (DCN), with data parallelism over independent
-streams ('dp') and sequence parallelism over bytes of one stream ('sp').
+The reference has no distribution layer (SURVEY §2.5); here a
+jax.sharding.Mesh over the devices JAX reports, with data parallelism
+over independent streams ('dp') and sequence parallelism over bytes of
+one stream ('sp'). The mesh follows the algorithm alone: it assumes no
+topology (NVLink joins the GPUs of one host all to all).
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 device resolver.
 
 The reference interleaves symbol decode and byte materialization in one
-sequential loop (deflate.lisp:673-702). The TPU design splits that into
+sequential loop (deflate.lisp:673-702). This codec splits that into
 two phases: a *frontend* (host native / host Python / device kernel)
 turns the bit stream into this fixed-width structure-of-arrays tape, and
 the *resolver* (ops/resolve.py) turns the tape into output bytes with

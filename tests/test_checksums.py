@@ -110,3 +110,17 @@ def test_jit_shape_reuse():
         arr = cs.pad_front(np.frombuffer(data, np.uint8), N)
         assert int(cs.adler32_device(jnp.asarray(arr), n)) == zlib.adler32(data)
         assert int(cs.crc32_device(jnp.asarray(arr), n)) == zlib.crc32(data)
+
+
+@pytest.mark.parametrize("kind", ["crc32", "adler32"])
+def test_tail_kernels_take_unaligned_buffers(kind):
+    """A resolver buffer whose length is no multiple of the kernel's
+    chunk (the span resolver's small outputs) is zero-padded, not
+    refused; bytes past n never count."""
+    data = os.urandom(3000)
+    buf = jnp.asarray(np.frombuffer(data + b"\x55" * 77, np.uint8))
+    if kind == "crc32":
+        assert int(cs.crc32_device_tail(buf, len(data))) == zlib.crc32(data)
+    else:
+        assert int(cs.adler32_device_tail(buf, len(data))) == \
+            zlib.adler32(data)

@@ -190,27 +190,3 @@ def test_gzip_multimember_device():
     payload = _g.compress(d1) + _g.compress(d2)
     out = api.decompress(payload, backend="device")
     assert out == d1 + d2
-
-
-def test_emulated_gather_path_bit_exact(monkeypatch):
-    """Force the TPU row-gather emulation on (CPU backend) end to end:
-    the fused kernel + batched table build must be bit-identical to the
-    native-gather trace on a mixed stream with stored + dynamic blocks
-    and a window carry."""
-    from tbz.ops import gather as G
-    monkeypatch.setattr(G, "want_emulation", lambda arr: True)
-    FF._kern_cache.clear()
-    try:
-        data = corpus(77, 160 << 10)
-        co = zlib.compressobj(6, zlib.DEFLATED, -15)
-        pay = co.compress(data[: 64 << 10]) + co.flush(zlib.Z_FULL_FLUSH)
-        co2 = zlib.compressobj(0, zlib.DEFLATED, -15)  # stored blocks
-        pay += co2.compress(data[64 << 10: 96 << 10]) + co2.flush(
-            zlib.Z_SYNC_FLUSH)
-        co3 = zlib.compressobj(9, zlib.DEFLATED, -15)
-        pay += co3.compress(data[96 << 10:]) + co3.flush()
-        out, dev, total, end_bit, st = run_fused(pay)
-        assert out == data
-        assert st["token_d2h_bytes"] == 0
-    finally:
-        FF._kern_cache.clear()

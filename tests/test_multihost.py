@@ -1,7 +1,7 @@
-"""Multi-host (DCN) bring-up: 2 local processes x 2 virtual CPU devices
+"""Multi-process bring-up: 2 local processes x 2 virtual CPU devices
 form a 4-device global mesh via jax.distributed; sharded checksums and a
-dp-sharded decode run across process boundaries (SURVEY §2.5 / ROADMAP
-§4 — the pod-slice path exercised as N local processes)."""
+dp-sharded decode run across process boundaries (SURVEY §2.5 — the
+multi-host path exercised as N local processes)."""
 
 import os
 import socket

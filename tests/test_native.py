@@ -12,7 +12,7 @@ from tbz import reference
 from tbz.errors import DeflateError, TruncatedError
 from tbz.native import loader
 
-from util import corpus, raw_deflate
+from util import corpus, fixture, raw_deflate
 
 pytestmark = pytest.mark.skipif(not loader.available(),
                                 reason="native build unavailable")
@@ -26,7 +26,7 @@ def tapes_equal(a, b):
 
 
 def test_fixture_identical():
-    payload = open("/root/reference/test.deflated", "rb").read()[8:]
+    _, payload = fixture()
     assert tapes_equal(loader.tokenize(payload),
                        reference.tokenize_host(payload))
     out, _, fin = loader.inflate(payload)

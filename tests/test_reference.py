@@ -14,8 +14,8 @@ import pytest
 from tbz import reference
 from tbz.errors import DeflateError, TruncatedError
 
-from util import (BitWriter, bitstring, corpus, fixed_lit_code, raw_deflate,
-                  write_dynamic_header)
+from util import (BitWriter, bitstring, corpus, fixed_lit_code, fixture,
+                  raw_deflate, write_dynamic_header)
 
 
 def run_ours(payload: bytes):
@@ -342,8 +342,6 @@ def test_differential_random_garbage():
 
 
 def test_reference_fixture():
-    raw = open("/root/reference/test.deflated", "rb").read()
-    size = int.from_bytes(raw[:8], "little")
-    payload = raw[8:]
+    size, payload = fixture()
     st, out = check_against_zlib(payload)
     assert st == "ok" and len(out) == size

@@ -11,7 +11,7 @@ from tbz import reference
 from tbz.ops import resolve
 from tbz.tape import TokenTape
 
-from util import corpus, raw_deflate
+from util import corpus, fixture, raw_deflate
 
 
 def roundtrip(data: bytes, level: int = 9) -> None:
@@ -22,8 +22,7 @@ def roundtrip(data: bytes, level: int = 9) -> None:
 
 
 def test_fixture():
-    raw = open("/root/reference/test.deflated", "rb").read()
-    payload = raw[8:]
+    _, payload = fixture()
     res = reference.tokenize_host(payload)
     got = resolve.resolve_bytes(res.tape, payload)
     assert got == zlib.decompressobj(-15).decompress(payload)

@@ -20,18 +20,18 @@ import pytest
 from tbz import api
 from tbz.streaming import Decompressor
 
-from util import corpus
+from util import corpus, fixture
 
 pytestmark = pytest.mark.slow
 
 
 def _fixture_payload():
-    """The reference's own fixture: raw deflate of an old deflate.lisp
-    (test-chunked-input.lisp:8-25), 22,728 bytes decompressed."""
-    raw = open("/root/reference/test.deflated", "rb").read()
-    payload = raw[8:]
+    """The in-repo fixture (tests/data/fixture.deflated): size header
+    + raw level-9 deflate, the shape of the reference's own fixture
+    (test-chunked-input.lisp:8-25)."""
+    size, payload = fixture()
     want = zlib.decompressobj(-15).decompress(payload)
-    assert len(want) == int.from_bytes(raw[:8], "little")
+    assert len(want) == size
     return payload, want
 
 

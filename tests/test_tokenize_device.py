@@ -11,7 +11,7 @@ from tbz import reference
 from tbz.errors import DeflateError, TruncatedError
 from tbz.ops.tokenize_device import tokenize_device
 
-from util import corpus, raw_deflate
+from util import corpus, fixture, raw_deflate
 
 
 def tapes_equal(a, b):
@@ -31,7 +31,7 @@ def classify(fn, payload):
 
 
 def test_fixture_identical():
-    payload = open("/root/reference/test.deflated", "rb").read()[8:]
+    _, payload = fixture()
     assert tapes_equal(tokenize_device(payload),
                        reference.tokenize_host(payload))
 

@@ -64,6 +64,18 @@ def bitstring(s: str) -> bytes:
     return w.bytes()
 
 
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                       "fixture.deflated")
+
+
+def fixture() -> tuple[int, bytes]:
+    """(declared size, raw deflate payload) of tests/data/fixture.deflated
+    (made by tests/data/make_fixture.py)."""
+    with open(FIXTURE, "rb") as f:
+        raw = f.read()
+    return int.from_bytes(raw[:8], "little"), raw[8:]
+
+
 def raw_deflate(data: bytes, level: int = 6) -> bytes:
     c = zlib.compressobj(level, zlib.DEFLATED, -15)
     return c.compress(data) + c.flush()
